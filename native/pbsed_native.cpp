@@ -5,7 +5,7 @@
 // The reference delegates audio IO to soundfile/sox on CPU worker
 // processes (pb_sed/data_preparation/provider.py:304-312,
 // pb_sed/database/resample_db.py:53-55). This framework feeds raw
-// waveforms to the TPU, so decode+resample is the only host-side hot
+// waveforms to the device, so decode+resample is the only host-side hot
 // loop; this native path keeps the (single-core) host ahead of the
 // device. Python falls back to the numpy implementation whenever the
 // shared library is unavailable (data/audio.py).

@@ -1,4 +1,4 @@
-"""pb_sed_tpu: TPU-native sound event detection framework.
+"""pb_sed_tpu: sound event detection framework on JAX.
 
 See README.md for the architecture overview and SURVEY.md for the
 capability blueprint (structural analysis of the fgnt/pb_sed reference).

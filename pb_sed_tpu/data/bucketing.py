@@ -6,7 +6,7 @@ groups examples of similar ``seq_len``, enforces ``min_label_diversity``
 and per-source ``min_dataset_examples`` quotas, supports expiration,
 bounded buffering and ``drop_incomplete``.
 
-TPU-first change: instead of the reference's continuous ``max_padding_rate``
+Design change: instead of the reference's continuous ``max_padding_rate``
 bucket boundaries (which yield arbitrary batch shapes and would force one
 XLA compile per batch), examples are bucketed into a *quantized length
 palette* — padded lengths are rounded up to a multiple of a rung

@@ -5,7 +5,7 @@ Capability parity with ``pb_sed/data_preparation/fetcher.py:6-52``
 and padertorch ``Collate`` (pad variable-length arrays, stack, keep lists
 for non-array fields).
 
-TPU-first: Collate pads every batch to its bucket's palette length
+Shape palette: Collate pads every batch to its bucket's palette length
 (frames) and pads the waveform to exactly the sample count that yields
 that many STFT frames (``STFT.num_samples_for_frames``), so each palette
 length maps to ONE compiled XLA program.

@@ -10,7 +10,7 @@ and ``JsonDatabase(json_path).get_dataset(name_or_list)`` over the
 
 Host-side, numpy/threads only (this feeds the device pipeline; the
 reference's process-pool prefetch becomes a thread pool since the heavy
-lifting — STFT/mel/aug — moved onto the TPU, see ops/features.py).
+lifting — STFT/mel/aug — moved onto the device, see ops/features.py).
 """
 import bisect
 import itertools

@@ -4,7 +4,7 @@ Capability parity with ``pb_sed/data_preparation/provider.py:22-378``
 (``get_train_set`` / ``get_validate_set`` / ``get_dataset`` / ``get_raw``
 over a JsonDatabase, with example filtering, eager caching, per-dataset
 repeats, per-class rebalancing, scale/mixture augmentation, transform and
-batching) — organised TPU-first rather than as a port:
+batching) — organised around the device step rather than as a port:
 
 - The training stream is assembled from an explicit **epoch plan**
   (:class:`EpochPlan`): every source contributes an index stream — its

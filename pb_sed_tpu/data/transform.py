@@ -6,7 +6,7 @@ for unlabeled examples**, boundary targets (union span per class) and/or
 strong targets (K, T) with 0.5 fill driven by the clip-level multi-hot, and
 random time warping.
 
-TPU-first split: the reference ran the STFT here on CPU workers; we only
+Host/device split: the reference ran the STFT here on CPU workers; we only
 compute the *geometry* (sample -> frame alignment via ops/stft.py) and ship
 the raw waveform — the STFT itself runs on device inside the jitted step.
 Time-warp parameters are sampled here (host RNG) so targets and the

@@ -12,11 +12,11 @@ ground-truth TSV readers (``filename onset offset event_label``).
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 
 def create_score_dataframe(scores, timestamps, event_classes):
     """(T, K) scores + (T+1,) timestamps -> score dataframe."""
+    import pandas as pd
     scores = np.asarray(scores)
     timestamps = np.asarray(timestamps, dtype=float)
     t, k = scores.shape
@@ -30,6 +30,7 @@ def create_score_dataframe(scores, timestamps, event_classes):
 
 def validate_score_dataframe(df, event_classes=None):
     """Returns (timestamps (T+1,), event_classes)."""
+    import pandas as pd
     assert isinstance(df, pd.DataFrame), type(df)
     columns = list(df.columns)
     assert columns[:2] == ['onset', 'offset'], columns[:2]
@@ -93,6 +94,7 @@ def write_sed_scores(scores, storage_path):
 
 
 def read_sed_scores(filepath):
+    import pandas as pd
     return pd.read_csv(filepath, sep='\t')
 
 
@@ -148,6 +150,7 @@ def write_detections_for_multiple_thresholds(
 
 def read_ground_truth_events(filepath):
     """TSV -> {clip_id: [(onset, offset, label)]}."""
+    import pandas as pd
     df = pd.read_csv(filepath, sep='\t')
     out = {}
     for _, row in df.iterrows():
@@ -166,6 +169,7 @@ def read_ground_truth_tags(filepath):
     Supports both the events format (``filename onset offset event_label``)
     and the DESED weak format (``filename event_labels`` with
     comma-separated labels)."""
+    import pandas as pd
     df = pd.read_csv(filepath, sep='\t')
     if 'event_labels' in df.columns:
         tags = {}
@@ -186,6 +190,7 @@ def read_ground_truth_tags(filepath):
 
 
 def read_audio_durations(filepath):
+    import pandas as pd
     df = pd.read_csv(filepath, sep='\t')
     return {
         str(row['filename']).rsplit('.', 1)[0]: float(row['duration'])

@@ -27,6 +27,7 @@ from pb_sed_tpu.experiments.weak_label_crnn.inference import (
 from pb_sed_tpu.models import base, strong_label, weak_label
 from pb_sed_tpu.paths import storage_root
 from pb_sed_tpu.train.emissions import EmissionsTracker
+from pb_sed_tpu.utils.config import load_run_config
 from pb_sed_tpu.utils.misc import dump_json, load_json, timestamp
 
 ex_name = 'strong_label_crnn_inference'
@@ -40,7 +41,7 @@ def config(cfg):
     cfg['strong_label_crnn_hyper_params_dir'] = ''
     assert len(cfg['strong_label_crnn_hyper_params_dir']) > 0, \
         'Set strong_label_crnn_hyper_params_dir on the command line.'
-    tuning_config = load_json(
+    tuning_config = load_run_config(
         Path(cfg['strong_label_crnn_hyper_params_dir']) / '1'
         / 'config.json')
     cfg['weak_label_crnn_hyper_params_dir'] = \

@@ -25,7 +25,8 @@ from pb_sed_tpu.models import base, strong_label, weak_label
 from pb_sed_tpu.models.strong_label import crnn as strong_label_crnn
 from pb_sed_tpu.paths import storage_root
 from pb_sed_tpu.train.emissions import EmissionsTracker
-from pb_sed_tpu.utils.misc import dump_json, load_json, timestamp
+from pb_sed_tpu.utils.config import load_run_config
+from pb_sed_tpu.utils.misc import dump_json, timestamp
 
 ex_name = 'strong_label_crnn_hyper_params'
 ex = Experiment(ex_name)
@@ -40,7 +41,7 @@ def config(cfg):
     cfg['weak_label_crnn_hyper_params_dir'] = ''
     assert len(cfg['weak_label_crnn_hyper_params_dir']) > 0, \
         'Set weak_label_crnn_hyper_params_dir on the command line.'
-    weak_tuning_config = load_json(
+    weak_tuning_config = load_run_config(
         Path(cfg['weak_label_crnn_hyper_params_dir']) / '1'
         / 'config.json')
     cfg['weak_label_crnn_dirs'] = weak_tuning_config['crnn_dirs']
@@ -59,7 +60,7 @@ def config(cfg):
     assert len(cfg['strong_label_crnn_dirs']) > 0
     cfg['strong_label_crnn_checkpoints'] = \
         'ckpt_best_macro_fscore_strong.pkl'
-    strong_config = load_json(
+    strong_config = load_run_config(
         Path(cfg['strong_label_crnn_dirs'][0]) / '1' / 'config.json')
     cfg['data_provider'] = strong_config['data_provider']
     cfg['database_name'] = strong_config.get('database_name', 'desed')

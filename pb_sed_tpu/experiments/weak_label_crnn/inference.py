@@ -33,6 +33,7 @@ from pb_sed_tpu.models import base
 from pb_sed_tpu.models.weak_label import CRNN
 from pb_sed_tpu.paths import storage_root
 from pb_sed_tpu.train.emissions import EmissionsTracker
+from pb_sed_tpu.utils.config import load_run_config
 from pb_sed_tpu.utils.misc import dump_json, load_json, timestamp
 from pb_sed_tpu.utils.segment import merge_segments
 
@@ -48,7 +49,7 @@ def config(cfg):
     cfg['hyper_params_dir'] = ''
     assert len(cfg['hyper_params_dir']) > 0, \
         'Set hyper_params_dir on the command line.'
-    tuning_config = load_json(
+    tuning_config = load_run_config(
         Path(cfg['hyper_params_dir']) / '1' / 'config.json')
     cfg['crnn_dirs'] = tuning_config['crnn_dirs']
     cfg['crnn_checkpoints'] = tuning_config['crnn_checkpoints']

@@ -28,7 +28,8 @@ from pb_sed_tpu.models import base, weak_label
 from pb_sed_tpu.models.weak_label import crnn as weak_label_crnn
 from pb_sed_tpu.paths import storage_root
 from pb_sed_tpu.train.emissions import EmissionsTracker
-from pb_sed_tpu.utils.misc import dump_json, load_json, timestamp
+from pb_sed_tpu.utils.config import load_run_config
+from pb_sed_tpu.utils.misc import dump_json, timestamp
 
 ex_name = 'weak_label_crnn_hyper_params'
 ex = Experiment(ex_name)
@@ -51,7 +52,8 @@ def config(cfg):
         cfg.force('crnn_dirs', sorted(str(d) for d in dirs))
     assert len(cfg['crnn_dirs']) > 0, 'crnn_dirs must not be empty.'
     cfg['crnn_checkpoints'] = 'ckpt_best_macro_fscore_weak.pkl'
-    crnn_config = load_json(Path(cfg['crnn_dirs'][0]) / '1' / 'config.json')
+    crnn_config = load_run_config(
+        Path(cfg['crnn_dirs'][0]) / '1' / 'config.json')
     cfg['data_provider'] = crnn_config['data_provider']
     cfg['database_name'] = crnn_config.get('database_name', 'desed')
     cfg['storage_dir'] = str(

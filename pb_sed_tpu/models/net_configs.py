@@ -50,13 +50,6 @@ def cnn_config(net_config='shallow', num_events=10):
             'pre_activation': True,
             'dropout': .0,
             'output_layer': False,
-            # Freq-major packed Pallas conv tower (ops/pallas/conv.py):
-            # the shallow recipe packs layers 1-8 into one (B, C, T*Fs)
-            # buffer (BN/act/conv/pool without relayouts; isolated tower
-            # fwd+grad 24.4 vs 36.5 ms on v5e). TPU-gated; the deep
-            # recipe's residuals fall back to the XLA path bit-exactly
-            # (cnn.py:_packed_plan).
-            'use_pallas': True,
         },
         'cnn_1d': {
             'out_channels': len(kernel_size_1d) * [256 * width],
@@ -103,13 +96,6 @@ def rnn_config(width, num_events, num_layers=2):
             'hidden_size': 256 * width,
             'num_layers': num_layers,
             'dropout': .0,
-            # Pallas recurrence kernels (ops/pallas/gru.py): on v5e at
-            # flagship size both directions win by trace-timed device
-            # spans (fwd 0.426 vs 0.501 ms scan, fwd+grad 2.593 vs
-            # 3.511 ms) with 18x fewer XLA op events per step; silently
-            # falls back to the scan path off-TPU and above
-            # ops/rnn.py:PALLAS_MAX_HIDDEN (VMEM budget)
-            'use_pallas': True,
         },
         'output_net': {
             'out_channels': [256 * width, num_events],

@@ -9,16 +9,16 @@ soft-label (0.5) masking; review buffers of ``eval_segment_length``
 max-pooled frame scores; ``tagging`` = max over time, SED = masked frame
 scores.
 
-TPU-first: one jitted graph from waveform to frame scores; the bidirectional
-recurrence runs as two batched scans (see ops/rnn.py); segment pooling for
-summary buffers happens on device via reshape+max.
+One jitted graph from waveform to frame scores; the bidirectional
+recurrence runs as one scan over both directions (see ops/rnn.py);
+segment pooling for summary buffers happens on device via reshape+max.
 """
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from pb_sed_tpu import nn
 from pb_sed_tpu.models.base.model import SoundEventModel
 from pb_sed_tpu.ops.cnn import CNN
 from pb_sed_tpu.ops.features import NormalizedLogMelExtractor

@@ -9,29 +9,29 @@ weights; inference methods ``tagging`` (fwd-last + bwd-first),
 ``boundaries_detection`` (min of heads), and sliding-window
 ``sound_event_detection`` with per-class / per-paramset window lengths.
 
-TPU-first notes: the whole forward (waveform -> STFT -> mel -> CNN -> GRU
-heads) is one jitted graph; sliding-window SED folds the window axis into
-the batch axis so the GRU heads run as one big batched recurrence (the MXU
-sees (B*n_windows) x gate matmuls); all losses are mask-driven over padded
+The whole forward (waveform -> STFT -> mel -> CNN -> GRU heads) is one
+jitted graph; sliding-window SED folds the window axis into the batch
+axis so the GRU heads run as one big batched recurrence ((B*n_windows)
+rows per gate matmul); all losses are mask-driven over padded
 batches. Scores are returned time-last (B, K, T), matching the reference's
 downstream contract.
 """
 from typing import Any, Optional
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from pb_sed_tpu import nn
 from pb_sed_tpu.models.base.model import SoundEventModel
 from pb_sed_tpu.ops.cnn import CNN
 from pb_sed_tpu.ops.features import NormalizedLogMelExtractor
 from pb_sed_tpu.ops.masking import compute_mask, masked_mean, take_last
-from pb_sed_tpu.ops.rnn import GRU, paired_gru_apply, paired_heads
+from pb_sed_tpu.ops.rnn import GRU
 
 
 class FBCRNNModule(nn.Module):
-    """The pure flax computation graph of the FBCRNN."""
+    """The computation graph of the FBCRNN."""
     feature_extractor: NormalizedLogMelExtractor
     cnn: CNN
     rnn_fwd: GRU
@@ -66,16 +66,6 @@ class FBCRNNModule(nn.Module):
     def __call__(self, batch, training=False):
         """Returns (y_fwd, y_bwd, seq_len_y, x, seq_len_x); y are (B, K, T)."""
         h, seq_len_h, x, seq_len_x = self.encode(batch, training=training)
-        if paired_heads(self.rnn_fwd, self.rnn_bwd):
-            # both heads' recurrences in ONE D=2 Pallas launch per
-            # layer (2x MXU row fill; reference runs them sequentially,
-            # weak_label/crnn.py:334-340)
-            y_fwd, y_bwd, seq_len_y = paired_gru_apply(
-                self.rnn_fwd, self.rnn_bwd, h, seq_len_h,
-                training=training)
-            y_fwd = jnp.swapaxes(self._bounded_sigmoid(y_fwd), 1, 2)
-            y_bwd = jnp.swapaxes(self._bounded_sigmoid(y_bwd), 1, 2)
-            return y_fwd, y_bwd, seq_len_y, x, seq_len_x
         y_fwd, seq_len_y = self.rnn_fwd(h, seq_len_h, training=training)
         y_fwd = jnp.swapaxes(self._bounded_sigmoid(y_fwd), 1, 2)
         if self.rnn_bwd is None:
@@ -117,24 +107,17 @@ class FBCRNNModule(nn.Module):
         # window extraction as wl STATIC strided slices instead of an
         # (n, wl) advanced-index gather: windows[:, i, j] = hp[:, i*ws+j]
         # so slicing over j gives hp[:, j : j+n*ws : ws] — slices+stack
-        # lower to plain copies on TPU, where the gather materializes a
-        # full index computation per element
+        # lower to plain copies, a gather to an index computation per
+        # element
         windows = jnp.stack(
             [hp[:, j:j + n * ws:ws] for j in range(wl)],
             axis=2)  # (B, n, wl, C)
         windows = windows.reshape(b * n, wl, c)
-        if paired_heads(self.rnn_fwd, self.rnn_bwd):
-            y_fwd, y_bwd, _ = paired_gru_apply(
-                self.rnn_fwd, self.rnn_bwd, windows, None,
-                training=training)
-            y = (self._bounded_sigmoid(y_fwd[:, -1])
-                 + self._bounded_sigmoid(y_bwd[:, 0])) / 2
-        else:
-            y_fwd, _ = self.rnn_fwd(windows, None, training=training)
-            y = self._bounded_sigmoid(y_fwd[:, -1])  # (B*n, K)
-            if self.rnn_bwd is not None:
-                y_bwd, _ = self.rnn_bwd(windows, None, training=training)
-                y = (y + self._bounded_sigmoid(y_bwd[:, 0])) / 2
+        y_fwd, _ = self.rnn_fwd(windows, None, training=training)
+        y = self._bounded_sigmoid(y_fwd[:, -1])  # (B*n, K)
+        if self.rnn_bwd is not None:
+            y_bwd, _ = self.rnn_bwd(windows, None, training=training)
+            y = (y + self._bounded_sigmoid(y_bwd[:, 0])) / 2
         k = y.shape[-1]
         y = y.reshape(b, n, k)
         y = jnp.swapaxes(y, 1, 2)  # (B, K, n)

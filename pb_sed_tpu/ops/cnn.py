@@ -9,114 +9,21 @@ dropout, ``output_layer`` flag, ``input_height``, tag conditioning via
 ``conditional_dims``, and layer freezing for transfer learning (handled in
 the trainer via parameter-label masks, see train/trainer.py).
 
-TPU-first notes: data layout is (B, T, F, C) / (B, T, C) so convolutions
-lower to MXU-friendly NHWC convs; batch-norm statistics are computed with
+Data layout is (B, T, F, C) / (B, T, C) (channels-last convolutions);
+batch-norm statistics are computed with
 explicit sequence masks (padded batches must not pollute the running
 stats); the reference's "(2, 1) pool" notation (freq x time in its (B, C,
 F, T) layout) is preserved in configs and mapped to our layout internally.
 """
 from typing import Any, Sequence, Union
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from pb_sed_tpu import nn
 from pb_sed_tpu.ops.masking import sequence_mask
 from pb_sed_tpu.utils.config import Configurable
 from pb_sed_tpu.utils.misc import to_list
-
-
-class Conv2dMXU(nn.Module):
-    """Drop-in for ``nn.Conv`` (same param tree: kernel (kt, kf, Cin,
-    Cout) + bias) that routes odd-kernel stride-1 SAME convs through the
-    Pallas im2col-GEMM kernels (ops/pallas/conv.py) on TPU.
-
-    XLA's own lowering of the sub-128-channel NHWC convs in this tower
-    runs at 12-25% lane fill (measured — see the conv kernel docstring);
-    the Pallas path packs (F, C) into one dense minor dim and contracts
-    K = kt*kf*Cin on the MXU. Off-TPU (or ``use_pallas=False``) falls
-    back to the exact flax bf16 conv path. Gating mirrors the GRU
-    kernels (ops/rnn.py:set_pallas_mode)."""
-    features: int
-    kernel_size: tuple
-    compute_dtype: Any = jnp.bfloat16
-    use_pallas: bool = False
-    param_cin: int = None   # real Cin when the packed input is
-    #                         channel-padded (entry layer, see
-    #                         CNN2d._packed_forward) — keeps the param
-    #                         tree checkpoint-compatible
-
-    @nn.compact
-    def __call__(self, x, packed=None, bn_fold=None):
-        """``packed``: a freq-major ConvGeom — then ``x`` is the packed
-        (B, Cin, Ls) buffer of the tower path and the conv runs as the
-        Pallas packed kernel (no relayout; see CNN2d._packed_forward).
-
-        ``bn_fold``: optional (scale, shift) per-channel affine
-        (``MaskedBatchNorm(..., fold=True)``) — the kernel then computes
-        conv(relu(x * scale + shift) * struct_mask) with the activation
-        applied at input-load time (packed path only)."""
-        kt, kf = self.kernel_size
-        cin = x.shape[1] if packed is not None else x.shape[-1]
-        if self.param_cin is not None:
-            cin = self.param_cin
-        kernel = self.param(
-            'kernel', nn.initializers.lecun_normal(),
-            (kt, kf, cin, self.features))
-        bias = self.param('bias', nn.initializers.zeros_init(),
-                          (self.features,))
-        if packed is not None:
-            from pb_sed_tpu.ops.pallas.conv import (conv2d_packed_fm,
-                                                    lane_mask)
-            from pb_sed_tpu.ops.rnn import _pallas_enabled
-            _, interpret = _pallas_enabled()
-            w = kernel
-            if x.shape[1] > cin:
-                # zero-padded input channels contribute exactly zero;
-                # autodiff slices dw back to the real channels via the
-                # pad transpose
-                w = jnp.pad(
-                    kernel, ((0, 0), (0, 0), (0, x.shape[1] - cin),
-                             (0, 0)))
-            if kt == kf == 1:
-                # 1x1 conv on the packed layout: channel mixing only —
-                # ONE bf16 matmul over the (huge) lane axis, no patch
-                # or halo; the mask zeroes the bias leak into the
-                # structural slots so the buffer stays a valid packed
-                # input for the next conv (deep recipe's alternating
-                # 3x3/1x1 stack, reference training.py:166-171)
-                # interpret mode (CPU tests): the CPU backend cannot
-                # lower bf16 x bf16 -> f32 dots; f32 operands carrying
-                # bf16-rounded values are bit-equivalent
-                mm = jnp.float32 if interpret else jnp.bfloat16
-                y = jnp.einsum(
-                    'bil,io->bol',
-                    x.astype(jnp.bfloat16).astype(mm),
-                    w[0, 0].astype(jnp.bfloat16).astype(mm),
-                    preferred_element_type=jnp.float32)
-                y = ((y + bias.astype(jnp.float32)[:, None])
-                     * lane_mask(packed, jnp.float32))
-                return y.astype(jnp.bfloat16)
-            if bn_fold is not None:
-                from pb_sed_tpu.ops.pallas.conv import (
-                    bnrelu_conv2d_packed_fm)
-                assert x.shape[1] == cin, (x.shape, cin)
-                return bnrelu_conv2d_packed_fm(
-                    x, bn_fold[0], bn_fold[1], w, bias, packed,
-                    interpret)
-            return conv2d_packed_fm(x, w, bias, packed, interpret)
-        if self.use_pallas and kt % 2 == 1 and kf % 2 == 1 \
-                and kt * kf > 1:
-            from pb_sed_tpu.ops.pallas.conv import conv2d_mxu, pltpu
-            from pb_sed_tpu.ops.rnn import _pallas_enabled
-            enabled, interpret = _pallas_enabled()
-            if enabled and pltpu is not None:
-                return conv2d_mxu(x, kernel, bias, interpret)
-        y = jax.lax.conv_general_dilated(
-            x.astype(self.compute_dtype),
-            kernel.astype(self.compute_dtype), (1, 1), 'SAME',
-            dimension_numbers=('NHWC', 'HWIO', 'NHWC'))
-        return y + bias.astype(self.compute_dtype)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -127,24 +34,8 @@ class MaskedBatchNorm(nn.Module):
     eps: float = 1e-3
     momentum: float = 0.95
 
-    @nn.compact
-    def __call__(self, x, seq_len, training=False, packed_mask=None,
-                 fold=False):
-        """``packed_mask``: (B, 1, L) valid-lane mask — then ``x`` is a
-        freq-major packed (B, C, L) buffer (channels on dim 1) and the
-        statistics are computed over (batch, lanes) with the mask; the
-        variable/param tree is identical to the unpacked path, so
-        checkpoints are interchangeable.
-
-        ``fold`` (packed only): return the per-channel affine
-        ``(scale, shift)`` with scale = gamma * rsqrt(var + eps) and
-        shift = beta - mean * scale INSTEAD of the normalized buffer —
-        the BN+ReLU fused conv kernels (ops/pallas/conv.py:
-        bnrelu_conv2d_packed) apply it at input-load time, so the
-        normalized buffer never exists in HBM. Statistics computation
-        and running-average updates are identical to the normal call."""
-        packed = packed_mask is not None
-        c = x.shape[1] if packed else x.shape[-1]
+    def __call__(self, x, seq_len, training=False):
+        c = x.shape[-1]
         ra_mean = self.variable('batch_stats', 'mean',
                                 lambda: jnp.zeros((c,)))
         ra_var = self.variable('batch_stats', 'var', lambda: jnp.ones((c,)))
@@ -152,48 +43,14 @@ class MaskedBatchNorm(nn.Module):
                                     lambda: jnp.zeros(()))
         gamma = self.param('scale', nn.initializers.ones, (c,))
         beta = self.param('shift', nn.initializers.zeros, (c,))
-        if packed:
-            xf = x.astype(jnp.float32)
-            m = packed_mask.astype(jnp.float32)
-            if training:
-                count = jnp.maximum(m.sum(), 1.)
-                # single-pass sum/sum-of-squares statistics: the two
-                # moment reductions are INDEPENDENT siblings over the
-                # same masked buffer, so XLA multi-output-fuses them
-                # into one read of the (B, C, Ls) buffer — the
-                # two-pass (mean, then (x - mean)^2) form cost a
-                # second full pass per layer (measured 1.76 ms/step of
-                # dependent convert_reduce fusions on the shallow
-                # flagship). f32 accumulation; E[x^2] - mean^2 is the
-                # reference BN kernels' own formulation, clamped at 0
-                # against cancellation.
-                mean = (xf * m).sum((0, 2)) / count
-                var = jnp.maximum(
-                    (jnp.square(xf) * m).sum((0, 2)) / count
-                    - jnp.square(mean), 0.)
-                momentum = jnp.where(
-                    initialized.value > 0, self.momentum, 0.)
-                ra_mean.value = (momentum * ra_mean.value
-                                 + (1 - momentum) * mean)
-                ra_var.value = (momentum * ra_var.value
-                                + (1 - momentum) * var)
-                initialized.value = jnp.ones(())
-            else:
-                mean = ra_mean.value
-                var = ra_var.value
-            rs = jax.lax.rsqrt(var + self.eps)
-            if fold:
-                sc = rs * gamma
-                return sc, beta - mean * sc
-            return ((xf - mean[:, None]) * (rs * gamma)[:, None]
-                    + beta[:, None])
         mask = sequence_mask(seq_len, x.shape[1])  # (B, T)
         mask = mask.reshape(mask.shape + (1,) * (x.ndim - 2))
-        # f32 statistics and normalize regardless of input dtype: the
-        # packed tower exits in bf16 (its values are bf16-rounded
-        # either way), and bf16-accumulated moments/counts would be
-        # garbage at flagship element counts. Single-pass sum/sum-sq
-        # form as in the packed branch above.
+        # f32 statistics and normalize regardless of input dtype:
+        # bf16-accumulated moments/counts would be garbage at flagship
+        # element counts. Single-pass sum / sum-of-squares form (the
+        # reference BN kernels' own formulation), clamped at 0 against
+        # cancellation: the two moment reductions are independent
+        # siblings over one buffer, which XLA fuses into one read.
         xf = x.astype(jnp.float32)
         mf = mask.astype(jnp.float32)
         if training:
@@ -217,7 +74,7 @@ class MaskedBatchNorm(nn.Module):
 def _act(name):
     if name in (None, 'identity', 'linear'):
         return lambda x: x
-    return getattr(nn, name)
+    return getattr(jax.nn, name)
 
 
 def _dtype(name):
@@ -236,14 +93,7 @@ def _pool_fp_tp(pool):
 
 
 def _pool2d(x, pool):
-    """Pool with reference notation: pool = (freq, time) or scalar.
-
-    Measured note (round 3): rewriting non-overlapping pools as
-    reshape+max to dodge the select-and-scatter gradient made the
-    train step SLOWER (48.4 -> 58.9 ms device) — splitting the tiled
-    minor dims forces relayout copies that cost more than the
-    select-and-scatter saves. nn.max_pool stays.
-    """
+    """Pool with reference notation: pool = (freq, time) or scalar."""
     if isinstance(pool, (tuple, list)):
         pf, pt = pool
     else:
@@ -279,43 +129,11 @@ def _match_residual(res, shape):
     return res
 
 
-def _match_residual_packed(entry, f_rows, cx, g, pconv,
-                           interpret=False):
-    """Adapt a pending residual entry to a packed use site (rows
-    ``f_rows``, channels ``cx``, geometry ``g``): packed entries
-    average row PAIRS per crossed (2, 1) pool and zero-pad grown
-    channels (same semantics as :func:`_match_residual` on the
-    unpacked layout — rows are freq bins); unpacked entries are
-    matched in 4-D then packed. Returns a float32 packed buffer.
-
-    The row-pair average runs as the ``avgpool2_rows_packed`` Pallas
-    kernel: the reshape(b, c, rows/2, 2, ts).mean(3) spelling lowers
-    to relayout copies of 5-D T(2,128)-tiled intermediates (~1.7 ms
-    per crossing residual on the deep recipe — round-5 trace); the
-    kernel computes bit-identical f32 values in one pass each way."""
-    if entry[0] == 'u':
-        res = entry[1]
-        matched = _match_residual(
-            res, (res.shape[0], g.f, f_rows, cx))
-        return pconv.pack_fm(matched, g, jnp.float32)
-    _, r2, rows, gs = entry
-    ts = gs.fs
-    r = r2
-    while rows > f_rows:
-        r = pconv.avgpool2_rows_packed(r, rows // 2, ts, interpret)
-        rows //= 2
-    assert rows == f_rows, (rows, f_rows)
-    r = r.astype(jnp.float32)
-    if cx > r.shape[1]:
-        r = jnp.pad(r, ((0, 0), (0, cx - r.shape[1]), (0, 0)))
-    return r
-
-
 class CNN2d(nn.Module, Configurable):
     """Stack of 2-D convolutions over (time, freq).
 
-    ``compute_dtype='bfloat16'`` runs the convolutions in bf16 on the MXU
-    (params and norm statistics stay float32).
+    ``compute_dtype='bfloat16'`` runs the convolutions in bf16 (params
+    and norm statistics stay float32).
     """
     out_channels: Sequence[int]
     kernel_size: Union[int, Sequence[int]] = 3
@@ -328,290 +146,9 @@ class CNN2d(nn.Module, Configurable):
     dropout: float = 0.
     output_layer: bool = False
     compute_dtype: str = 'bfloat16'
-    use_pallas: bool = False     # Pallas im2col-GEMM convs (TPU-gated)
-    fuse_bn: bool = False        # fold BN+ReLU into the packed conv
-    #                              kernels' input load (pre-activation
-    #                              relu towers only; per-layer fallback
-    #                              when the staging slab exceeds the
-    #                              VMEM footprint model)
     in_channels: int = None      # informational (finalize glue)
     input_height: int = None     # informational
 
-    def _packed_plan(self, x, kernels, pools, residuals):
-        """Freq-major packed-tower plan: (pack_at, unpack_at, {i: geom},
-        interpret, entry_pad) or None when the configuration or backend
-        requires the unpacked XLA path.
-
-        The plan is a contiguous WINDOW [pack_at, unpack_at) of layers
-        run on the packed layout (one pack and one unpack relayout);
-        layers outside the window run the unpacked XLA path. Inside the
-        window: batch norm, dropout 0, odd 3x3-class kernels via the
-        Pallas conv kernels, 1x1 kernels via a masked packed matmul,
-        residual skips carried as packed buffers (row avg-pool +
-        channel zero-pad matching, cnn.py:_match_residual_packed),
-        16-multiple channels, freq-only pools in {1, 2} and a shared
-        lane stride/time-pad. Residuals crossing a window boundary are
-        converted (pack_fm/unpack_fm) at the use site. The ENTRY layer
-        may additionally have Cin < 16 (the cin=1 feature lift): its
-        input is zero-padded to 16 channels AFTER packing (entry_pad),
-        which keeps the big relayout on the tiny pre-lift buffer."""
-        if not self.use_pallas or x.ndim != 4:
-            return None
-        from pb_sed_tpu.ops.pallas import conv as pconv
-        from pb_sed_tpu.ops.rnn import _pallas_enabled
-        enabled, interpret = _pallas_enabled()
-        if not enabled or pconv.pltpu is None:
-            return None
-        from pb_sed_tpu.ops.fallback import note_fallback
-        if self.norm != 'batch' or self.dropout > 0:
-            note_fallback(
-                'the packed Pallas conv tower',
-                f'norm={self.norm!r}/dropout={self.dropout} — the tower '
-                f'packs batch-norm towers without dropout only')
-            return None
-        n = len(self.out_channels)
-        t, f, cin = x.shape[1], x.shape[2], x.shape[3]
-        fuse_ok = (self.fuse_bn and self.pre_activation
-                   and self.activation_fn == 'relu')
-        runs = []  # (start, end, geoms, entry_pad, n_pallas, fused)
-        start = None
-        geoms = {}
-        fused = set()
-        ts = pf_sh = None
-        entry_pad = False
-        n_pallas = 0
-
-        def close(end):
-            nonlocal start, geoms, fused, ts, pf_sh, entry_pad, n_pallas
-            if start is not None and n_pallas:
-                runs.append((start, end, geoms, entry_pad, n_pallas,
-                             fused))
-            start, geoms, fused, ts, pf_sh = None, {}, set(), None, None
-            entry_pad, n_pallas = False, 0
-
-        for i in range(n):
-            k = kernels[i]
-            kt, kf = (k, k) if not isinstance(k, (tuple, list)) else k
-            pf_, pt_ = _pool_fp_tp(pools[i])
-            cout = self.out_channels[i]
-            pad_here = start is None and 0 < cin < 16
-            cin_eff = 16 if pad_here else cin
-            common_ok = (
-                cin_eff % 16 == 0 and cout % 16 == 0
-                and pt_ == 1 and pf_ in (1, 2)
-                and (pf_ == 1 or f % 2 == 0))
-            g = None
-            gf = False
-            if common_ok and kt % 2 == 1 and kf % 2 == 1 and kt * kf > 1:
-                # try the BN+ReLU-fused geometry first (its footprint
-                # carries the staging slab); fall back to the plain
-                # kernel for this layer rather than dropping it
-                want = (fuse_ok and not pad_here
-                        and not (self.output_layer and i == n - 1))
-                for f_try in ((True, False) if want else (False,)):
-                    if not pconv.fm_supported(
-                            t, f, kt, kf, max(cin_eff, cout),
-                            cin=cin_eff, cout=cout, fused=f_try):
-                        continue
-                    cand = pconv.fm_geom(t, f, kt, kf,
-                                         max(cin_eff, cout),
-                                         cin=cin_eff, cout=cout,
-                                         fused=f_try)
-                    # all window layers must share the lane stride AND
-                    # the in-row lane offset of frame 0 (the pack is
-                    # done once with the first layer's geometry)
-                    if ((ts is None or cand.fs == ts)
-                            and (pf_sh is None or cand.pf == pf_sh)):
-                        g, gf = cand, f_try
-                        break
-            elif common_ok and kt == kf == 1 and ts is not None:
-                # 1x1 conv: a masked packed matmul (no Pallas kernel,
-                # no halo) — the geom only carries the layout fields
-                # for the masks, inheriting the window's lane kernel
-                # so pf matches the packed buffer
-                g = pconv._with_tc(f, t, 1, 2 * pf_sh + 1, f, fs=ts)
-            if g is not None:
-                if start is None:
-                    start = i
-                    entry_pad = pad_here
-                if kt * kf > 1:
-                    ts, pf_sh = g.fs, g.pf
-                    n_pallas += 1
-                geoms[i] = g
-                if gf:
-                    fused.add(i)
-            else:
-                close(i)
-            cin = cout
-            f = -(-f // pf_)
-            t = -(-t // pt_)
-        close(n)
-        if not runs:
-            note_fallback(
-                'the packed Pallas conv tower',
-                'no packable layer window of length >= 2 (needs odd '
-                'kernels, 16-multiple channels, freq-only pools in '
-                '{1, 2} and a shared lane stride)')
-            return None
-        start, end, geoms, entry_pad, n_pallas, fused = max(
-            runs, key=lambda r: (r[1] - r[0], r[4]))
-        if end - start < 2:
-            note_fallback(
-                'the packed Pallas conv tower',
-                'no packable layer window of length >= 2 (needs odd '
-                'kernels, 16-multiple channels, freq-only pools in '
-                '{1, 2} and a shared lane stride)')
-            return None
-        if end < n:
-            note_fallback(
-                'the packed Pallas conv tower (partial)',
-                f'layers [{end}, {n}) exceed the backward kernels\' '
-                f'VMEM footprint model and run the unpacked XLA path; '
-                f'[{start}, {end}) run packed')
-        return start, end, geoms, interpret, entry_pad, frozenset(fused)
-
-    def _packed_forward(self, x, seq_len, training, plan, kernels,
-                        pools, residuals):
-        """Freq-major packed tower: pack once after the unpacked
-        prefix, run BN -> act -> conv[ -> +residual] -> pool on the
-        packed (B, C, Ls) layout (re-masking structural slots after
-        every affine shift), unpack once, finish any unpacked tail.
-        Param/variable tree is identical to the unpacked path.
-
-        Residual skips are carried as packed buffers inside the window
-        (row avg-pool + channel zero-pad matching) and converted at the
-        use site when they cross a window boundary. 1x1 convs run as a
-        masked packed matmul (Conv2dMXU). The entry layer's BN/act run
-        unpacked when its input is channel-padded (entry_pad: BN's
-        param size is the REAL channel count, which a packed-BN would
-        mis-size), and the pack relayout runs on the pre-pad buffer
-        (16x smaller at cin=1) with the zero channels appended
-        afterwards."""
-        from pb_sed_tpu.ops.pallas import conv as pconv
-        pack_at, unpack_at, geoms, interpret, entry_pad, fused = plan
-        act = _act(self.activation_fn)
-        norm_kwargs = self.norm_kwargs or {}
-        n = len(self.out_channels)
-        pending = {}
-
-        def as_4d(entry):
-            if entry[0] == 'u':
-                return entry[1]
-            _, r2, rows, gs = entry
-            gr = gs._replace(t=rows, tp=rows, ls=rows * gs.fs, tc=1)
-            return pconv.unpack_fm(r2, gr, jnp.float32)
-
-        def run_unpacked(x, seq_len, lo, hi):
-            for i in range(lo, hi):
-                is_output = self.output_layer and i == n - 1
-                h = x
-                if self.pre_activation and not is_output:
-                    if self.norm == 'batch':
-                        h = MaskedBatchNorm(
-                            **norm_kwargs, name=f'norm_{i}')(
-                                h, seq_len, training)
-                    h = act(h)
-                k = kernels[i]
-                kt, kf = (k, k) if not isinstance(k, (tuple, list)) \
-                    else k
-                h = Conv2dMXU(self.out_channels[i],
-                              kernel_size=(kt, kf), name=f'conv_{i}',
-                              compute_dtype=_dtype(self.compute_dtype),
-                              use_pallas=False)(h)
-                h = h.astype(jnp.float32)
-                if not self.pre_activation and not is_output:
-                    if self.norm == 'batch':
-                        h = MaskedBatchNorm(
-                            **norm_kwargs, name=f'norm_{i}')(
-                                h, seq_len, training)
-                    h = act(h)
-                if i in pending:
-                    for e in pending.pop(i):
-                        h = h + _match_residual(as_4d(e), h.shape)
-                if residuals[i] is not None:
-                    pending.setdefault(int(residuals[i]), []).append(
-                        ('u', h))
-                h = _pool2d(h, pools[i])
-                _, pt_ = _pool_fp_tp(pools[i])
-                if pt_ > 1:
-                    seq_len = -(-seq_len // pt_)
-                x = h
-            return x, seq_len
-
-        x, seq_len = run_unpacked(x, seq_len, 0, pack_at)
-        g = geoms[pack_at]
-        cin_entry = x.shape[-1]
-        if entry_pad and self.pre_activation:
-            # entry BN/act on the thin unpacked input (param size = the
-            # real channel count; the buffer is 16x smaller than the
-            # packed one it feeds)
-            h = MaskedBatchNorm(**norm_kwargs, name=f'norm_{pack_at}')(
-                x, seq_len, training)
-            x = act(h)
-        x2 = pconv.pack_fm(x, g)
-        if entry_pad:
-            x2 = jnp.pad(x2, ((0, 0), (0, 16 - cin_entry), (0, 0)))
-        f_rows = g.t
-        for i in range(pack_at, unpack_at):
-            g = geoms[i]
-            assert g.t == f_rows, (g, f_rows)
-            is_output = self.output_layer and i == n - 1
-            if not is_output:
-                struct = pconv.lane_mask(g, jnp.float32)
-                valid = pconv.fm_valid_mask(g, seq_len)
-            fold = None
-            if i in fused:
-                # BN+ReLU fold into the conv kernel's input load: the
-                # stats (and running-average updates) are identical,
-                # only the normalized buffer never materializes
-                fold = MaskedBatchNorm(**norm_kwargs, name=f'norm_{i}')(
-                    x2, seq_len, training, packed_mask=valid, fold=True)
-            elif self.pre_activation and not is_output \
-                    and not (entry_pad and i == pack_at):
-                h = MaskedBatchNorm(**norm_kwargs, name=f'norm_{i}')(
-                    x2, seq_len, training, packed_mask=valid)
-                x2 = (act(h) * struct).astype(jnp.bfloat16)
-            k = kernels[i]
-            kt, kf = (k, k) if not isinstance(k, (tuple, list)) else k
-            x2 = Conv2dMXU(self.out_channels[i], kernel_size=(kt, kf),
-                           name=f'conv_{i}',
-                           compute_dtype=_dtype(self.compute_dtype),
-                           use_pallas=True,
-                           param_cin=(cin_entry if entry_pad
-                                      and i == pack_at else None)
-                           )(x2, packed=g, bn_fold=fold)
-            if not self.pre_activation and not is_output:
-                h = MaskedBatchNorm(**norm_kwargs, name=f'norm_{i}')(
-                    x2, seq_len, training, packed_mask=valid)
-                x2 = (act(h) * struct).astype(jnp.bfloat16)
-            if i in pending:
-                acc = x2.astype(jnp.float32)
-                for e in pending.pop(i):
-                    acc = acc + _match_residual_packed(
-                        e, f_rows, x2.shape[1], g, pconv, interpret)
-                x2 = acc.astype(jnp.bfloat16)
-            if residuals[i] is not None:
-                pending.setdefault(int(residuals[i]), []).append(
-                    ('p', x2, f_rows, g))
-            pf_, _ = _pool_fp_tp(pools[i])
-            if pf_ == 2:
-                f_rows //= 2
-                x2 = pconv.maxpool2_rows_packed(
-                    x2, f_rows, g.fs, interpret)
-        gl = geoms[unpack_at - 1]
-        g_out = pconv.ConvGeom(
-            t=f_rows, f=gl.f, kt=gl.kt, kf=gl.kf, tc=1, tp=f_rows,
-            fs=gl.fs, ls=f_rows * gl.fs)
-        # exit the tower in bf16: the values are bf16-rounded already,
-        # and the (B, T, F, C) -> (B, T, F*C) boundary relayout into
-        # the 1-D tower then moves half the bytes (the f32 unpack cost
-        # a measured ~1 ms/step convert+copy+reshape chain on the
-        # shallow flagship); MaskedBatchNorm casts to f32 on entry, so
-        # downstream numerics are identical
-        x = pconv.unpack_fm(x2, g_out, jnp.bfloat16)
-        return run_unpacked(x, seq_len, unpack_at, n)
-
-    @nn.compact
     def __call__(self, x, seq_len, training=False):
         n = len(self.out_channels)
         kernels = to_list(self.kernel_size, n)
@@ -621,10 +158,6 @@ class CNN2d(nn.Module, Configurable):
         residuals = to_list(
             self.residual_connections if self.residual_connections
             else None, n)
-        plan = self._packed_plan(x, kernels, pools, residuals)
-        if plan is not None:
-            return self._packed_forward(
-                x, seq_len, training, plan, kernels, pools, residuals)
         act = _act(self.activation_fn)
         norm_kwargs = self.norm_kwargs or {}
         pending = {}
@@ -638,13 +171,12 @@ class CNN2d(nn.Module, Configurable):
                             h, seq_len, training)
                 h = act(h)
                 if self.dropout > 0 and training:
-                    h = nn.Dropout(self.dropout, deterministic=False)(h)
+                    h = nn.Dropout(self.dropout)(h)
             k = kernels[i]
             kt, kf = (k, k) if not isinstance(k, (tuple, list)) else k
-            h = Conv2dMXU(self.out_channels[i], kernel_size=(kt, kf),
-                          name=f'conv_{i}',
-                          compute_dtype=_dtype(self.compute_dtype),
-                          use_pallas=self.use_pallas)(h)
+            h = nn.Conv(self.out_channels[i], kernel_size=(kt, kf),
+                        name=f'conv_{i}',
+                        dtype=_dtype(self.compute_dtype))(h)
             h = h.astype(jnp.float32)
             if not self.pre_activation and not is_output:
                 if self.norm == 'batch':
@@ -653,7 +185,7 @@ class CNN2d(nn.Module, Configurable):
                             h, seq_len, training)
                 h = act(h)
                 if self.dropout > 0 and training:
-                    h = nn.Dropout(self.dropout, deterministic=False)(h)
+                    h = nn.Dropout(self.dropout)(h)
             if i in pending:
                 for res in pending.pop(i):
                     h = h + _match_residual(res, h.shape)
@@ -686,7 +218,6 @@ class CNN1d(nn.Module, Configurable):
     compute_dtype: str = 'bfloat16'
     in_channels: int = None  # informational
 
-    @nn.compact
     def __call__(self, x, seq_len, training=False):
         n = len(self.out_channels)
         kernels = to_list(
@@ -709,9 +240,9 @@ class CNN1d(nn.Module, Configurable):
                             h, seq_len, training)
                 h = act(h)
                 if self.dropout > 0 and training:
-                    h = nn.Dropout(self.dropout, deterministic=False)(h)
+                    h = nn.Dropout(self.dropout)(h)
             h = nn.Conv(self.out_channels[i], kernel_size=(kernels[i],),
-                        padding='SAME', name=f'conv_{i}',
+                        name=f'conv_{i}',
                         dtype=_dtype(self.compute_dtype))(h)
             h = h.astype(jnp.float32)
             if not self.pre_activation and not is_output:
@@ -721,7 +252,7 @@ class CNN1d(nn.Module, Configurable):
                             h, seq_len, training)
                 h = act(h)
                 if self.dropout > 0 and training:
-                    h = nn.Dropout(self.dropout, deterministic=False)(h)
+                    h = nn.Dropout(self.dropout)(h)
             if i in pending:
                 for res in pending.pop(i):
                     h = h + _match_residual(res, h.shape)
@@ -787,12 +318,5 @@ class CNN(nn.Module, Configurable):
         h, seq_len = self.tower_2d(h, seq_len, training=training)
         b, t2, f2, c2 = h.shape
         h = h.reshape(b, t2, f2 * c2)
-        if h.dtype == jnp.bfloat16:
-            # pin the tower->1d boundary relayout to bf16: without the
-            # barrier XLA hoists the 1-D tower's batch-norm f32 convert
-            # ABOVE the transpose/retile copies, doubling their bytes
-            # (trace-measured 0.8 ms/step of f32 copy+reshape on the
-            # shallow flagship vs 0.3 in bf16)
-            h = jax.lax.optimization_barrier(h)
         h, seq_len = self.tower_1d(h, seq_len, training=training)
         return h, seq_len

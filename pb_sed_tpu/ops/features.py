@@ -1,6 +1,6 @@
 """Fused log-mel feature extractor with on-device augmentation.
 
-TPU-native re-design of the reference feature front-end
+On-device re-design of the reference feature front-end
 (padertorch ``NormalizedLogMelExtractor`` configured at
 ``pb_sed/experiments/weak_label_crnn/training.py:190-217``):
 
@@ -8,20 +8,21 @@ TPU-native re-design of the reference feature front-end
     normalization -> [train: time masks, frequency masks, additive noise]
 
 Everything after the host ships the waveform happens inside one jit:
-XLA fuses |STFT| with the (B,T,F)x(B,F,M) mel matmul on the MXU, and the
-augmentations are elementwise VPU ops keyed by explicit JAX PRNG keys.
+XLA fuses |STFT| with the (B,T,F)x(B,F,M) mel matmul, and the
+augmentations are elementwise ops keyed by explicit JAX PRNG keys.
 Mel warping (reference ``MelWarping``) is realised by building a *warped
 filterbank per example on device* from two scalars (ops/mel.py), instead of
 re-computing filter matrices on CPU workers.
 
 Sequence masking: normalization statistics, masks and noise only ever see
-valid frames (padded batches are a TPU necessity the reference didn't have).
+valid frames (padded batches keep one compiled program per shape, which
+the reference didn't need).
 """
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from pb_sed_tpu import nn
 from pb_sed_tpu.ops import mel as mel_ops
 from pb_sed_tpu.ops.masking import sequence_mask
 from pb_sed_tpu.ops.stft import STFT
@@ -60,7 +61,6 @@ class NormalizedLogMelExtractor(nn.Module, Configurable):
     stft_window_length: int = 960
     stft_fading: str = 'half'
     stft_window: str = 'blackman'
-    stft_backend: str = 'auto'  # 'auto': MXU real-DFT matmul on TPU
     number_of_filters: int = 128
     lowest_frequency: float = 50.
     highest_frequency: float = None
@@ -92,10 +92,9 @@ class NormalizedLogMelExtractor(nn.Module, Configurable):
         return STFT(
             shift=self.stft_shift, window_length=self.stft_window_length,
             size=self.stft_size, fading=self.stft_fading,
-            window=self.stft_window, backend=self.stft_backend,
+            window=self.stft_window,
         )
 
-    @nn.compact
     def __call__(self, x, seq_len, training=False, warp_params=None):
         """
         Args:
@@ -193,8 +192,8 @@ class NormalizedLogMelExtractor(nn.Module, Configurable):
             # sequence end, not the zeroed padding (zeros would put a
             # spurious derivative spike on every clip tail). Select with
             # the mask + the last valid frame instead of a full-tensor
-            # take_along_axis (which XLA-TPU lowers to sort-based
-            # gather/scatter — see ops/masking.reverse_sequence).
+            # take_along_axis (a full-tensor gather/scatter — see
+            # ops/masking.reverse_sequence).
             from pb_sed_tpu.ops.masking import take_last
 
             def edge_replicate(z):

@@ -72,16 +72,13 @@ def reverse_sequence(x, seq_len, axis=-1):
     degenerates to a plain ``jnp.flip`` (no roll, no doubled-buffer
     copies — those dominated the sliding-window ensemble trace).
 
-    TPU-critical implementation note: the obvious
-    ``take_along_axis(flip(x), src)`` broadcasts the index to the FULL
-    tensor, which XLA-TPU lowers to sort-based gather/scatter — measured
-    ~50 ms forward + ~36 ms backward per call at (32, 500, 256), which
-    dominated the whole FBCRNN train step (the backward head calls this
-    4x per step). Instead: flip (free, layout-only) + per-example
-    circular roll via batched dynamic slices of a doubled buffer. And
-    because flip-then-roll is a SYMMETRIC permutation (P^T == P — the
-    op is an involution), the VJP is the op itself applied to the
-    cotangent, so the backward pass never sees a scatter at all.
+    Implementation: the obvious ``take_along_axis(flip(x), src)``
+    broadcasts the index to the full tensor (a gather forward, a
+    scatter backward). Instead: flip + per-example circular roll via
+    batched dynamic slices of a doubled buffer. Because flip-then-roll
+    is a SYMMETRIC permutation (P^T == P — the op is an involution), the
+    VJP is the op itself applied to the cotangent, so the backward pass
+    never sees a scatter at all.
     """
     axis = axis % x.ndim
     if seq_len is None:
@@ -97,37 +94,12 @@ def _flip_roll(x, offsets, axis):
     return _flip_roll_impl(x, offsets, axis)
 
 
-# the (B, T, T) one-hot roll operator is O(T^2) memory — past this the
-# doubled-buffer dynamic-slice path wins on footprint
-_ONEHOT_ROLL_MAX_T = 1024
-
-
-def _use_onehot_roll(t, axis, ndim):
-    """Whether the roll runs as a one-hot MXU matmul (tests monkeypatch
-    this to pin parity of the two paths off-TPU)."""
-    return (axis == 1 and ndim >= 2 and t <= _ONEHOT_ROLL_MAX_T
-            and jax.default_backend() == 'tpu')
-
-
 def _flip_roll_impl(x, offsets, axis):
+    # a dynamic slice per example, not a one-hot (B, T, T) permutation
+    # matmul: on an H100 at (32, 500, 256) f32 the slices take 0.063 ms
+    # forward+grad against 0.125 ms for the matmul (PERF.md, roll)
     t = x.shape[axis]
     flipped = jnp.flip(x, axis=axis)
-    if _use_onehot_roll(t, axis, x.ndim):
-        # one-hot MXU roll: XLA lowers the vmapped per-example dynamic
-        # slice below to a SERIAL while loop over the batch (measured
-        # 0.84 ms fwd+grad at (32, 500, 256)); the batched permutation
-        # matmul y[b, i] = sum_j R[b, i, j] x[b, j] runs on the MXU in
-        # 0.16 ms. Precision HIGHEST keeps it BIT-exact: each output
-        # row has exactly one nonzero product and the full-f32
-        # emulation reconstructs the operand exactly (HIGH/default
-        # quantize x to bf16 — measured 1.5e-2 / 6e-5 errors).
-        i = jnp.arange(t)
-        src = (i[None, :] + offsets[:, None]) % jnp.maximum(t, 1)
-        r = (src[:, :, None] == i[None, None, :]).astype(jnp.float32)
-        flat = flipped.reshape(flipped.shape[0], t, -1)
-        y = jnp.einsum('bij,bjc->bic', r, flat.astype(jnp.float32),
-                       precision=jax.lax.Precision.HIGHEST)
-        return y.reshape(flipped.shape).astype(x.dtype)
 
     # batch on axis 0 (all callers), roll axis = axis-1 inside the map
     def roll_one(xb, off):

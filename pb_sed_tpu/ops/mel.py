@@ -6,10 +6,10 @@ warp_factor ~ LogTruncatedNormal(scale=.08, trunc=ln 1.3),
 boundary_frequency_ratio ~ TruncatedExponential(scale=.5, trunc=5),
 highest_frequency = sr/2).
 
-TPU-first design: the warped filterbank is built *per example on device*
-from two scalars (warp factor, boundary ratio) via a closed-form triangle
-formula, then applied as one batched (B,T,F)x(B,F,M) matmul that rides the
-MXU and fuses with the |STFT| that precedes it.
+Design: the warped filterbank is built *per example on device* from two
+scalars (warp factor, boundary ratio) via a closed-form triangle formula,
+then applied as one batched (B,T,F)x(B,F,M) matmul next to the |STFT|
+that precedes it.
 """
 import jax.numpy as jnp
 import numpy as np

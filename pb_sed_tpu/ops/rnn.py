@@ -7,148 +7,86 @@ TransformerEncoder}`` as used by the reference models
 semantics, optional bidirectionality, optional construction as a
 *time-reversed* copy (the FBCRNN backward head), and a CNN1d output net.
 
-TPU-first notes: the input projections of every timestep are computed as
-one large (B*T, F) x (F, 3H) matmul *outside* the scan (MXU-friendly);
-``lax.scan`` then only carries the (B, H) x (H, 3H) recurrent matmul per
-step. Sequences are padded; the reversed/bidirectional paths use
-mask-aware sequence reversal so padding never leaks into the recurrence
-from the front.
+The input projections of every timestep are computed as one large
+(B*T, F) x (F, 3H) bf16 matmul *outside* the recurrence; ``lax.scan``
+then only carries the (B, H) x (H, 3H) recurrent matmul per step.
+Sequences are padded; the reversed/bidirectional paths use mask-aware
+sequence reversal so padding never leaks into the recurrence from the
+front.
 """
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
+from pb_sed_tpu import nn
 from pb_sed_tpu.ops.cnn import CNN1d
 from pb_sed_tpu.ops.masking import reverse_sequence
 from pb_sed_tpu.utils.config import Configurable
 
 
-_SCAN_UNROLL = 8  # amortize TPU loop overhead over several timesteps
+# timesteps per scan iteration: on an H100 at D=2, B=32, T=501, H=256
+# the forward+grad recurrence takes 11.0 ms at 8 against 27.2 ms at 1
+# (16: 10.8 ms at twice the unrolled body; PERF.md, GRU recurrence)
+_SCAN_UNROLL = 8
 
 
-_PALLAS_MODE = 'auto'  # 'auto' | 'force_interpret' (tests) | 'off'
+def gru_scan(xw, w_hh, b_hh, h0):
+    """GRU recurrence with torch gate order (r, z, n) over D independent
+    directions: (D, B, T, 3H) input projections (input bias included),
+    (D, H, 3H) recurrent weights, (D, 1, 3H) recurrent bias and
+    (D, B, H) initial state -> (D, B, T, H) hidden states. The
+    recurrent matmul runs in bf16 with f32 accumulation; gates and state
+    stay f32."""
+    t = xw.shape[2]
+    w_hh_c = w_hh.astype(jnp.bfloat16)
 
-# the hand-written kernels' VMEM blocking fits the 16 MB scoped budget
-# up to the deep width-2 recipes' H=512 (the SPLIT backward variant,
-# ops/pallas/gru.py:_gru_bwd_split_kernel — the fused backward's h^2
-# dw accumulator caps out at H=256); larger recurrences take the scan
-# path (ops/pallas/gru.py:_bwd_split_blocks calibration)
-PALLAS_MAX_HIDDEN = 512
+    def step(h, xw_t):  # h: (D, B, H), xw_t: (D, B, 3H)
+        hw = jnp.einsum(
+            'dbh,dhg->dbg', h.astype(jnp.bfloat16), w_hh_c,
+            preferred_element_type=jnp.float32) + b_hh
+        xr, xz, xn = jnp.split(xw_t, 3, axis=-1)
+        hr, hz, hn = jnp.split(hw, 3, axis=-1)
+        r = jax.nn.sigmoid(xr + hr)
+        z = jax.nn.sigmoid(xz + hz)
+        n = jnp.tanh(xn + r * hn)
+        h_new = (1. - z) * n + z * h
+        return h_new, h_new
 
-
-def set_pallas_mode(mode):
-    """Test/debug hook: 'auto' uses the kernels on a real TPU only,
-    'force_interpret' runs them in the Pallas interpreter (CPU tests),
-    'off' disables them even on TPU."""
-    global _PALLAS_MODE
-    assert mode in ('auto', 'force_interpret', 'off'), mode
-    _PALLAS_MODE = mode
-
-
-def _pallas_enabled():
-    """Returns (enabled, interpret). The interpreter would crawl through
-    production CPU runs, so 'auto' enables the kernels on TPU only —
-    ``use_pallas=True`` elsewhere falls back to the scan path."""
-    if _PALLAS_MODE == 'force_interpret':
-        return True, True
-    if _PALLAS_MODE == 'off':
-        return False, False
-    import jax as _jax
-    return _jax.default_backend() == 'tpu', False
+    _, ys = jax.lax.scan(step, h0, jnp.moveaxis(xw, 2, 0),
+                         unroll=min(_SCAN_UNROLL, t))  # (T, D, B, H)
+    return jnp.moveaxis(ys, 0, 2)
 
 
 class GRULayer(nn.Module):
-    """Single GRU layer with torch gate ordering (r, z, n).
-
-    The input projections for ALL timesteps run as one bf16 MXU matmul
-    outside the scan (:meth:`project`); the scan carries only the
-    (B, H) x (H, 3H) recurrent matmul, unrolled to amortize loop
-    overhead. With ``use_pallas`` the recurrence runs as the
-    time-blocked Pallas kernel (``ops/pallas/gru.py``) instead of
-    ``lax.scan``. Setup-style (params declared in ``setup`` from
-    ``input_size``) so callers can drive :meth:`project` and the
-    recurrence separately — the FBCRNN head pairing
-    (:func:`paired_gru_apply`) stacks two layers' projections into one
-    D=2 kernel launch.
-    """
+    """Single unidirectional GRU layer: (B, T, F) -> (B, T, H)."""
     hidden_size: int
-    input_size: int
     bias: bool = True
-    use_pallas: bool = False
 
-    def setup(self):
-        f, hdim = self.input_size, self.hidden_size
-        self.w_ih = self.param('w_ih', nn.initializers.lecun_normal(),
-                               (f, 3 * hdim))
-        self.w_hh = self.param('w_hh', nn.initializers.orthogonal(),
-                               (hdim, 3 * hdim))
-        if self.bias:
-            self.b_ih = self.param('b_ih', nn.initializers.zeros,
-                                   (3 * hdim,))
-            self.b_hh = self.param('b_hh', nn.initializers.zeros,
-                                   (3 * hdim,))
-        else:
-            self.b_ih = jnp.zeros((3 * hdim,))
-            self.b_hh = jnp.zeros((3 * hdim,))
-
-    def project(self, x):
-        """(B, T, F) -> (B, T, 3H) input projections (+ input bias),
-        one MXU matmul for all timesteps."""
-        assert x.shape[-1] == self.input_size, (x.shape, self.input_size)
-        return jnp.dot(
-            x.astype(jnp.bfloat16), self.w_ih.astype(jnp.bfloat16),
-            preferred_element_type=jnp.float32) + self.b_ih
-
-    def __call__(self, x, h0=None):
-        """x: (B, T, F) -> (B, T, H)."""
+    def __call__(self, x):
         b, t, f = x.shape
         hdim = self.hidden_size
-        xw = self.project(x)
-        if h0 is None:
-            h0 = jnp.zeros((b, hdim), dtype=jnp.float32)
-        if self.use_pallas:
-            enabled, interpret = _pallas_enabled()
-            if enabled and hdim <= PALLAS_MAX_HIDDEN:
-                from pb_sed_tpu.ops.pallas.gru import gru_scan
-                return gru_scan(xw[None], self.w_hh[None],
-                                self.b_hh[None], h0[None], interpret)[0]
-            if enabled:
-                from pb_sed_tpu.ops.fallback import note_fallback
-                note_fallback(
-                    'the Pallas GRU recurrence',
-                    f'hidden_size={hdim} exceeds PALLAS_MAX_HIDDEN='
-                    f'{PALLAS_MAX_HIDDEN} (backward-kernel VMEM gate)')
-        w_hh_c = self.w_hh.astype(jnp.bfloat16)
-        b_hh = self.b_hh
-
-        def step(h, xw_t):
-            hw = jnp.dot(h.astype(jnp.bfloat16), w_hh_c,
-                         preferred_element_type=jnp.float32) + b_hh
-            xr, xz, xn = jnp.split(xw_t, 3, axis=-1)
-            hr, hz, hn = jnp.split(hw, 3, axis=-1)
-            r = jax.nn.sigmoid(xr + hr)
-            z = jax.nn.sigmoid(xz + hz)
-            n = jnp.tanh(xn + r * hn)
-            h_new = (1. - z) * n + z * h
-            return h_new, h_new
-
-        _, ys = jax.lax.scan(step, h0, jnp.swapaxes(xw, 0, 1),
-                             unroll=min(_SCAN_UNROLL, t))
-        return jnp.swapaxes(ys, 0, 1)
+        w_ih = self.param('w_ih', nn.initializers.lecun_normal(),
+                          (f, 3 * hdim))
+        w_hh = self.param('w_hh', nn.initializers.orthogonal(),
+                          (hdim, 3 * hdim))
+        if self.bias:
+            b_ih = self.param('b_ih', nn.initializers.zeros, (3 * hdim,))
+            b_hh = self.param('b_hh', nn.initializers.zeros, (3 * hdim,))
+        else:
+            b_ih = b_hh = jnp.zeros((3 * hdim,))
+        xw = jnp.dot(x.astype(jnp.bfloat16), w_ih.astype(jnp.bfloat16),
+                     preferred_element_type=jnp.float32) + b_ih
+        h0 = jnp.zeros((1, b, hdim), dtype=jnp.float32)
+        return gru_scan(xw[None], w_hh[None], b_hh[None, None], h0)[0]
 
 
 class BiGRULayer(nn.Module):
     """Fused bidirectional GRU layer: forward and backward directions run
     in ONE scan with a stacked (2, ...) parameter axis, halving the
-    number of sequential loop iterations vs two separate scans. With
-    ``use_pallas`` both directions run in one kernel launch (direction =
-    leading grid axis of ``ops/pallas/gru.py``)."""
+    number of sequential loop iterations vs two separate scans."""
     hidden_size: int
     bias: bool = True
-    use_pallas: bool = False
 
-    @nn.compact
     def __call__(self, x, seq_len):
         """x: (B, T, F) -> (B, T, 2H) (fwd || bwd)."""
         b, t, f = x.shape
@@ -170,41 +108,9 @@ class BiGRULayer(nn.Module):
             w_ih.astype(jnp.bfloat16),
             preferred_element_type=jnp.float32) + b_ih[:, None]
         h0 = jnp.zeros((2, b, hdim), dtype=jnp.float32)
-        if self.use_pallas:
-            enabled, interpret = _pallas_enabled()
-            if enabled and hdim <= PALLAS_MAX_HIDDEN:
-                from pb_sed_tpu.ops.pallas.gru import gru_scan
-                ys2 = gru_scan(xw, w_hh, b_hh[:, 0], h0, interpret)
-                fwd = ys2[0]
-                bwd = reverse_sequence(ys2[1], seq_len, axis=1)
-                return jnp.concatenate([fwd, bwd], axis=-1)
-            if enabled:
-                from pb_sed_tpu.ops.fallback import note_fallback
-                note_fallback(
-                    'the Pallas bidirectional GRU recurrence',
-                    f'hidden_size={hdim} exceeds PALLAS_MAX_HIDDEN='
-                    f'{PALLAS_MAX_HIDDEN} (backward-kernel VMEM gate)')
-        w_hh_c = w_hh.astype(jnp.bfloat16)
-
-        def step(h, xw_t):  # h: (2, B, H), xw_t: (2, B, 3H)
-            hw = jnp.einsum(
-                'dbh,dhg->dbg', h.astype(jnp.bfloat16), w_hh_c,
-                preferred_element_type=jnp.float32) + b_hh
-            xr, xz, xn = jnp.split(xw_t, 3, axis=-1)
-            hr, hz, hn = jnp.split(hw, 3, axis=-1)
-            r = jax.nn.sigmoid(xr + hr)
-            z = jax.nn.sigmoid(xz + hz)
-            n = jnp.tanh(xn + r * hn)
-            h_new = (1. - z) * n + z * h
-            return h_new, h_new
-
-        _, ys = jax.lax.scan(
-            step, h0, jnp.moveaxis(xw, 2, 0),
-            unroll=min(_SCAN_UNROLL, t))  # (T, 2, B, H)
-        fwd = jnp.moveaxis(ys[:, 0], 0, 1)  # (B, T, H)
-        bwd = reverse_sequence(
-            jnp.moveaxis(ys[:, 1], 0, 1), seq_len, axis=1)
-        return jnp.concatenate([fwd, bwd], axis=-1)
+        ys = gru_scan(xw, w_hh, b_hh, h0)  # (2, B, T, H)
+        bwd = reverse_sequence(ys[1], seq_len, axis=1)
+        return jnp.concatenate([ys[0], bwd], axis=-1)
 
 
 def _stacked_orthogonal(key, shape, dtype=jnp.float32):
@@ -215,57 +121,25 @@ def _stacked_orthogonal(key, shape, dtype=jnp.float32):
 
 
 class StackedGRU(nn.Module):
-    """Multi-layer (optionally bidirectional) GRU over padded batches.
-
-    ``use_pallas`` selects the time-blocked Pallas recurrence kernels
-    (``ops/pallas/gru.py``): one forward kernel and one hand-written
-    backward kernel (custom VJP), both faster than the scan path on TPU;
-    off-TPU the flag falls back to the scan path (``_pallas_enabled``).
-
-    With ``input_size`` set (the model config glue provides it), the
-    unidirectional layer modules are declared in ``setup`` and exposed
-    as ``gru_layers`` so :func:`paired_gru_apply` can fuse two heads'
-    recurrences into one D=2 kernel launch per layer; the parameter
-    tree (``layer_{i}_fwd/...``) is identical either way.
-    """
+    """Multi-layer (optionally bidirectional) GRU over padded batches."""
     hidden_size: int
     num_layers: int = 1
     bias: bool = True
     dropout: float = 0.
     bidirectional: bool = False
-    use_pallas: bool = False
-    input_size: int = None  # enables setup-declared layers (see above)
+    input_size: int = None  # informational (config glue)
 
-    def setup(self):
-        if self.bidirectional or self.input_size is None:
-            self.gru_layers = None
-        else:
-            self.gru_layers = [
-                GRULayer(
-                    self.hidden_size,
-                    input_size=(self.input_size if i == 0
-                                else self.hidden_size),
-                    bias=self.bias, use_pallas=self.use_pallas,
-                    name=f'layer_{i}_fwd')
-                for i in range(self.num_layers)
-            ]
-
-    @nn.compact
     def __call__(self, x, seq_len, training=False):
         h = x
         for i in range(self.num_layers):
             if self.bidirectional:
                 h = BiGRULayer(self.hidden_size, self.bias,
-                               use_pallas=self.use_pallas,
                                name=f'layer_{i}_bi')(h, seq_len)
-            elif self.gru_layers is not None:
-                h = self.gru_layers[i](h)
             else:
-                h = GRULayer(self.hidden_size, input_size=h.shape[-1],
-                             bias=self.bias, use_pallas=self.use_pallas,
+                h = GRULayer(self.hidden_size, bias=self.bias,
                              name=f'layer_{i}_fwd')(h)
             if self.dropout > 0 and training and i < self.num_layers - 1:
-                h = nn.Dropout(self.dropout, deterministic=False)(h)
+                h = nn.Dropout(self.dropout)(h)
         return h
 
 
@@ -335,69 +209,6 @@ class GRU(nn.Module, Configurable):
                 h = reverse_sequence(h, rev_len, axis=1)
         y, seq_len = self.head(h, seq_len, training=training)
         return y, seq_len
-
-
-def paired_heads(head_f, head_b):
-    """Whether two ``GRU`` heads (the FBCRNN fwd/bwd pair) can run via
-    :func:`paired_gru_apply`: both unidirectional Pallas-enabled
-    StackedGRUs of equal depth/width with setup-declared layers, no
-    inter-layer dropout, on a backend where the kernels engage."""
-    if head_b is None or not isinstance(head_f, GRU) \
-            or not isinstance(head_b, GRU):
-        return False
-    if head_f.reverse or not head_b.reverse:
-        return False
-    cf, cb = head_f.core, head_b.core
-    if not isinstance(cf, StackedGRU) or not isinstance(cb, StackedGRU):
-        return False
-    if cf.bidirectional or cb.bidirectional:
-        return False
-    if cf.gru_layers is None or cb.gru_layers is None:
-        return False
-    if (cf.num_layers != cb.num_layers
-            or cf.hidden_size != cb.hidden_size
-            or cf.dropout > 0 or cb.dropout > 0):
-        return False
-    if not (cf.use_pallas and cb.use_pallas
-            and cf.hidden_size <= PALLAS_MAX_HIDDEN):
-        return False
-    return _pallas_enabled()[0]
-
-
-def paired_gru_apply(head_f, head_b, x, seq_len, training=False):
-    """Run the FBCRNN's two unidirectional GRU heads with each layer's
-    two recurrences fused into ONE D=2 Pallas kernel launch.
-
-    Semantically identical to ``head_f(x, seq_len)`` +
-    ``head_b(x, seq_len)`` (the backward head reverses in, recurs,
-    reverses out — ``GRU.__call__``), but the recurrent matmuls run at
-    2x the MXU row fill and half the launch count (the reference runs
-    the heads strictly sequentially,
-    ``pb_sed/models/weak_label/crnn.py:334-340``).
-
-    Returns ``(y_fwd, y_bwd, seq_len_out)``.
-    """
-    from pb_sed_tpu.ops.pallas.gru import gru_scan
-    core_f, core_b = head_f.core, head_b.core
-    rev_len = seq_len  # None -> plain flip inside reverse_sequence
-    if seq_len is None:
-        seq_len = jnp.full((x.shape[0],), x.shape[1], dtype=jnp.int32)
-    _, interpret = _pallas_enabled()
-    b = x.shape[0]
-    hdim = core_f.hidden_size
-    h_f = x
-    h_b = reverse_sequence(x, rev_len, axis=1)
-    for lf, lb in zip(core_f.gru_layers, core_b.gru_layers):
-        xw = jnp.stack([lf.project(h_f), lb.project(h_b)])
-        w_hh = jnp.stack([lf.w_hh, lb.w_hh])
-        b_hh = jnp.stack([jnp.asarray(lf.b_hh), jnp.asarray(lb.b_hh)])
-        h0 = jnp.zeros((2, b, hdim), dtype=jnp.float32)
-        ys = gru_scan(xw, w_hh, b_hh, h0, interpret)
-        h_f, h_b = ys[0], ys[1]
-    y_f, seq_out = head_f.head(h_f, seq_len, training=training)
-    h_b = reverse_sequence(h_b, rev_len, axis=1)
-    y_b, _ = head_b.head(h_b, seq_len, training=training)
-    return y_f, y_b, seq_out
 
 
 class TransformerEncoder(nn.Module, Configurable):
@@ -474,18 +285,17 @@ class _TransformerBlock(nn.Module):
     num_heads: int
     dropout: float
 
-    @nn.compact
     def __call__(self, x, mask, training=False):
         h = nn.LayerNorm()(x)
         h = nn.MultiHeadDotProductAttention(
             num_heads=self.num_heads, qkv_features=self.hidden_size,
             dropout_rate=self.dropout, deterministic=not training,
-        )(h, h, mask=mask)
+        )(h, mask=mask)
         x = x + h
         h = nn.LayerNorm()(x)
         h = nn.Dense(self.d_ff)(h)
-        h = nn.relu(h)
+        h = jax.nn.relu(h)
         if self.dropout > 0 and training:
-            h = nn.Dropout(self.dropout, deterministic=False)(h)
+            h = nn.Dropout(self.dropout)(h)
         h = nn.Dense(self.hidden_size)(h)
         return x + h

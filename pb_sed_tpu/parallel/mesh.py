@@ -3,7 +3,7 @@
 The distributed-communication component the reference lacks entirely
 (SURVEY.md §2.4): a ``jax.sharding.Mesh`` with ``data`` (and optionally
 ``ensemble``) axes; batches are sharded over ``data``, parameters
-replicated, and XLA inserts the psum gradient reductions over ICI. Multi-
+replicated, and XLA inserts the gradient all-reduce. Multi-
 host entry goes through ``jax.distributed.initialize`` (``initialize``
 below is a no-op on a single host).
 """
@@ -37,7 +37,7 @@ def default_ensemble_mesh(n_models, devices=None):
     the device grid and splits the members evenly — and the batch over
     the remaining ``data`` axis. Returns None on a single device (the
     vmapped single-chip lane needs no mesh); a 1-D data mesh when the
-    counts are coprime (members stay local, batch shards over ICI)."""
+    counts are coprime (members stay local, batch shards over devices)."""
     import math
     devices = list(devices if devices is not None else jax.devices())
     if len(devices) <= 1:

@@ -12,12 +12,12 @@ tracking named ``ckpt_best_<metric>``, resume from the latest checkpoint,
 and ``{'model': flat_state_dict}`` checkpoint layout enabling partial-load
 surgery.
 
-TPU-first design:
+Design:
 - ONE jitted train step per padded batch shape: loss + grads + optax update
   + masked-BN stat updates fused into a single XLA program.
 - SPMD data parallelism via ``jax.sharding``: the batch is sharded over the
   mesh's ``data`` axis, parameters/optimizer state are replicated, and XLA
-  emits the psum gradient reduction over ICI — no hand-written collectives.
+  emits the gradient all-reduce — no hand-written collectives.
 - The learning rate enters the step as a dynamic scalar, so host-side LR
   annealing and validation back-off never trigger recompilation.
 - Summaries buffer on host (numpy) and flush on the summary trigger to
@@ -68,7 +68,7 @@ class Trainer(Configurable):
         self.steps_per_call = steps_per_call
         # JAX profiler trace around iterations [profile_at,
         # profile_at + profile_num_steps) into storage_dir/profile
-        # (SURVEY.md §5: TPU-native replacement for the reference's
+        # (SURVEY.md §5: device-time replacement for the reference's
         # wall-clock-only observability)
         self.profile_at = profile_at
         self.profile_num_steps = profile_num_steps
@@ -180,7 +180,7 @@ class Trainer(Configurable):
             # Everything that changes per step (rng, iteration, LR
             # annealing) lives in device-resident args advanced ON DEVICE:
             # per-step host->device transfers serialize the dispatch
-            # pipeline (catastrophic on remote backends).
+            # pipeline.
             step_rng = jax.random.fold_in(rng, 0)
             rngs = {'augment': jax.random.fold_in(step_rng, 0),
                     'dropout': jax.random.fold_in(step_rng, 1)}
@@ -227,9 +227,8 @@ class Trainer(Configurable):
         def train_multi_step(variables, opt_state, batches, rng,
                              iteration, lr_scale):
             """K train steps in one XLA program: lax.scan over stacked
-            batches (K, B, ...) amortizes per-call dispatch/RPC overhead
-            (the main cost on remote backends) and lets XLA overlap the
-            steps' host-independent work."""
+            batches (K, B, ...) amortizes per-call dispatch overhead and
+            lets XLA overlap the steps' host-independent work."""
 
             def body(carry, batch):
                 variables, opt_state, rng, iteration = carry
@@ -357,18 +356,21 @@ class Trainer(Configurable):
             self._profile_done = True
             logdir = self.storage_dir / 'profile'
             print(f'Profiler trace written to {logdir}')
-            try:
-                from pb_sed_tpu.utils.xplane import device_step_times_ms
-                times = device_step_times_ms(logdir)
-                if times:
-                    print(f'Device time per step (trace): '
-                          f'{[round(t, 2) for t in sorted(times)]} ms')
-            except Exception:  # noqa: BLE001 — diagnostics only
-                pass
+            from pb_sed_tpu.utils.xplane import device_step_times_ms
+            times = device_step_times_ms(logdir)
+            print(f'Device time per step (trace): '
+                  f'{[round(t, 3) for t in times]} ms')
 
     def train_step(self, batch):
         self._ensure_ready(batch)
         self._maybe_start_profile()
+        if self._profiling:
+            with jax.profiler.StepTraceAnnotation(
+                    'train', step_num=self.iteration):
+                return self._train_step(batch)
+        return self._train_step(batch)
+
+    def _train_step(self, batch):
         for hook in self.hooks:
             hook.pre_step(self)
         mesh_size = (len(self.mesh.devices.flat)

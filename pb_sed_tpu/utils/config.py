@@ -16,11 +16,14 @@ reference, e.g. ``pb_sed/models/weak_label/crnn.py:304-340`` and
   ``config['feature_extractor']['number_of_filters']`` work.
 - ``Class.from_config(config)`` recursively instantiates factories.
 - Configs serialize to plain JSON (factories as ``"module.QualName"`` strings)
-  and can be re-instantiated from the persisted form.
+  and can be re-instantiated from the persisted form; ``load_run_config``
+  reads a persisted one that older code wrote.
 """
 import dataclasses
 import importlib
 import inspect
+import json
+import warnings
 from collections.abc import Mapping, MutableMapping
 
 
@@ -57,8 +60,8 @@ def _signature_defaults(factory):
             for field in dataclasses.fields(factory):
                 if not field.init:
                     continue
-                if field.name in ('parent', 'name', 'rngs'):
-                    continue  # flax module plumbing fields
+                if field.name == 'name':
+                    continue  # module naming field (pb_sed_tpu/nn.py)
                 if field.default is not dataclasses.MISSING:
                     if type(field.default).__name__ == '_Sentinel':
                         continue
@@ -307,3 +310,47 @@ def instantiate(config):
 
 def config_to_json(config):
     return _jsonify(config)
+
+
+# Options that run directories written by older code name and no factory
+# takes any more. They chose between kernels of one computation, so
+# dropping them leaves the model, its variables and its outputs
+# unchanged.
+REMOVED_OPTIONS = ('use_pallas', 'fuse_bn', 'stft_backend', 'backend')
+
+
+def drop_removed_options(config, path='config'):
+    """Remove ``REMOVED_OPTIONS`` from every factory config in ``config``
+    whose factory no longer accepts them (in place); warn naming each
+    dropped key. Returns the dotted paths of the dropped keys."""
+    dropped = []
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            present = [key for key in REMOVED_OPTIONS if key in node]
+            if present and 'factory' in node:
+                accepted = inspect.signature(
+                    import_class(node['factory'])).parameters
+                for key in present:
+                    if key not in accepted:
+                        del node[key]
+                        dropped.append(f'{path}.{key}')
+            for key, value in node.items():
+                visit(value, f'{path}.{key}')
+        elif isinstance(node, list):
+            for i, value in enumerate(node):
+                visit(value, f'{path}[{i}]')
+
+    visit(config, path)
+    if dropped:
+        warnings.warn(f'ignoring options removed from the code: {dropped}')
+    return dropped
+
+
+def load_run_config(path):
+    """A run directory's persisted ``config.json``, with the
+    ``REMOVED_OPTIONS`` that older code wrote into it dropped."""
+    with open(path) as fid:
+        config = json.load(fid)
+    drop_removed_options(config)
+    return config

@@ -1,7 +1,7 @@
 """Profiling / tracing utilities.
 
 The reference has no profiler beyond wall-clock + codecarbon (SURVEY.md
-§5); the TPU-native equivalents are JAX profiler traces (viewable in
+§5); the device-side equivalents are JAX profiler traces (viewable in
 TensorBoard / Perfetto) and per-step timing, plus a simple timer registry
 for host-side stages.
 """

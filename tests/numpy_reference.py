@@ -3,7 +3,7 @@
 An INDEPENDENT re-implementation of the reference model contract
 (``/root/reference/pb_sed/models/weak_label/crnn.py:69-206`` and
 ``strong_label/crnn.py:60-112``) used by ``test_golden_model.py`` to pin
-the flax models' numerics: HTK mel triangles, masked normalization and
+the models' numerics: HTK mel triangles, masked normalization and
 batch-norm statistics (valid frames only, normalization applied
 everywhere), SAME convs, torch-gate-order GRU (r, z, n with the reset
 gate inside the candidate's recurrent term), bounded sigmoid, the
@@ -13,7 +13,7 @@ with soft-label (0.5) masking.
 
 Everything here is float32/float64 numpy with no jax import — wrong
 gate order, a flipped cummax, a mask applied to the wrong axis, or a
-transposed weight in the flax path produces order-one disagreement,
+transposed weight in the module path produces order-one disagreement,
 far above the bf16 tolerance of the comparison.
 """
 import numpy as np
@@ -107,16 +107,26 @@ def max_pool(x, window):
     return x[:, :t2 * wt].reshape(b, t2, wt, c).max(axis=2)
 
 
-def gru_layer(x, w_ih, w_hh, b_ih, b_hh):
+def gru_layer(x, w_ih, w_hh, b_ih, b_hh, operand_dtype=None):
     """(B, T, F) -> (B, T, H); torch gate order (r, z, n), reset gate
-    multiplying the candidate's RECURRENT term only."""
+    multiplying the candidate's RECURRENT term only. ``operand_dtype``
+    (e.g. ``ml_dtypes.bfloat16``) rounds the operands of both matmuls to
+    that type first, as a reduced-precision matmul does; products and
+    sums, gates and state stay float32."""
+    def rnd(a):
+        a = np.asarray(a, np.float32)
+        if operand_dtype is None:
+            return a
+        return a.astype(operand_dtype).astype(np.float32)
+
     b, t, f = x.shape
     hdim = w_hh.shape[0]
-    xw = x @ w_ih + b_ih  # (B, T, 3H)
+    xw = rnd(x) @ rnd(w_ih) + b_ih  # (B, T, 3H)
+    w_hh = rnd(w_hh)
     h = np.zeros((b, hdim), np.float32)
     ys = np.zeros((b, t, hdim), np.float32)
     for i in range(t):
-        hw = h @ w_hh + b_hh
+        hw = rnd(h) @ w_hh + b_hh
         xr, xz, xn = np.split(xw[:, i], 3, axis=-1)
         hr, hz, hn = np.split(hw, 3, axis=-1)
         r = sigmoid(xr + hr)
@@ -148,7 +158,7 @@ def bce(y, t):
 
 
 # ---------------------------------------------------------------------
-# model blocks (parameters read from the flax variables tree as data)
+# model blocks (parameters read from the variables tree as data)
 # ---------------------------------------------------------------------
 
 def extractor(params, stft, seq_len, *, number_of_filters, sample_rate,

@@ -1,4 +1,4 @@
-"""Full-model golden parity: flax CRNNs vs the straight-numpy reference.
+"""Full-model golden parity: the CRNN modules vs the straight-numpy reference.
 
 The numpy implementation (``tests/numpy_reference.py``) independently
 re-implements the reference semantics (masked BN statistics, torch GRU
@@ -10,7 +10,7 @@ implementations. The numpy outputs are additionally pinned against a
 checked-in fixture (``tests/fixtures/golden_model.npz``) so a
 coordinated semantic drift of model AND reference cannot pass silently.
 
-Tolerances: the flax path computes convolutions and GRU projections in
+Tolerances: the module path computes convolutions and GRU projections in
 bfloat16 (production semantics) — structural errors (wrong gate order,
 flipped cummax, misapplied mask) produce order-one disagreement, far
 above the few-percent bf16 noise allowed here.
@@ -354,7 +354,7 @@ def test_bicrnn_matches_numpy_reference():
 
 def test_numpy_reference_matches_fixture():
     """The numpy reference itself is pinned: a coordinated semantic
-    drift of the flax model AND the numpy reference cannot pass. BLAS
+    drift of the model AND the numpy reference cannot pass. BLAS
     summation-order differences across machines allow 1e-5."""
     got = _golden_outputs()
     if not os.path.exists(FIXTURE):  # pragma: no cover

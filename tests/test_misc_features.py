@@ -1,6 +1,6 @@
 """Coverage for remaining capability surface: Transformer head, SLAT,
 label smoothing, class weights, audio segmenter, host sharding, CLI
-parsing, profiling timers, emissions tracker."""
+parsing, profiling timers, emissions tracker, trace intervals."""
 import numpy as np
 import pytest
 
@@ -243,19 +243,18 @@ def test_merge_segments_short_clip_keeps_tail():
 
 
 def test_xplane_gaps_in_span():
-    """Pure interval logic of the stall-gap analyzer
-    (utils/xplane.py:stall_gaps_ms): holes of a span not covered by
-    sync-op intervals, honoring the minimum-gap threshold and
-    overlapping/out-of-order input."""
-    from pb_sed_tpu.utils.xplane import _gaps_in_span
+    """Pure interval logic of the device-idle reduction
+    (utils/xplane.py:union_ns): the holes of a span not covered by
+    kernel intervals, with overlapping and out-of-order input."""
+    from pb_sed_tpu.utils.xplane import union_ns
 
     span = (0, 100)
     ivs = [(10, 30), (20, 40), (55, 60), (90, 95)]  # overlap + holes
-    gaps = _gaps_in_span(span, ivs, 0)
-    assert gaps == [(0, 10), (40, 55), (60, 90), (95, 100)]
-    # threshold drops the 5-wide tail holes
-    assert _gaps_in_span(span, ivs, 6) == [(0, 10), (40, 55), (60, 90)]
+    gaps = [(0, 10), (40, 55), (60, 90), (95, 100)]
+    covered = union_ns(ivs)
+    assert covered == 40
+    assert (span[1] - span[0]) - covered == sum(b - a for a, b in gaps)
     # fully covered span -> no gaps
-    assert _gaps_in_span((10, 40), [(0, 50)], 0) == []
+    assert union_ns([(0, 50), (10, 40)]) == 50
     # empty coverage -> the whole span is one gap
-    assert _gaps_in_span((5, 9), [], 0) == [(5, 9)]
+    assert union_ns([]) == 0

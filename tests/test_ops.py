@@ -42,21 +42,20 @@ def test_stft_magnitude_shapes_and_strided_vs_gather():
             frames[:, t], padded[:, t * 320:t * 320 + 960], rtol=0, atol=0)
 
 
-def test_stft_matmul_backend_matches_fft():
-    """The MXU real-DFT matmul backend reproduces the rfft magnitudes
-    to bf16 accuracy (relative ~4e-3 at spectral peaks; tiny bins are
-    bounded by an absolute floor scaled to the frame energy)."""
+@pytest.mark.parametrize('window', ['blackman', 'hann'])
+def test_stft_magnitude_matches_numpy_rfft(window):
+    """|rfft| of the windowed frames, against numpy's FFT in float64."""
     import jax.numpy as jnp
+    from pb_sed_tpu.ops.stft import _window
     rng = np.random.RandomState(3)
     audio = (rng.randn(2, 16000) * np.hanning(16000)).astype(np.float32)
-    ref = np.asarray(STFT(backend='fft').magnitude(jnp.asarray(audio)))
-    mat = np.asarray(STFT(backend='matmul').magnitude(jnp.asarray(audio)))
-    assert mat.shape == ref.shape
-    scale = ref.max()
-    np.testing.assert_allclose(mat, ref, rtol=2e-2, atol=2e-2 * scale)
-    # backend='auto' resolves to fft off-TPU (exact vs fft path)
-    auto = np.asarray(STFT().magnitude(jnp.asarray(audio)))
-    np.testing.assert_allclose(auto, ref, atol=0)
+    stft = STFT(window=window)
+    got = np.asarray(stft.magnitude(jnp.asarray(audio)))
+    frames = np.asarray(stft.frame(jnp.asarray(audio)), np.float64)
+    ref = np.abs(np.fft.rfft(
+        frames * _window(window, 960).astype(np.float64), n=1024, axis=-1))
+    assert got.shape == ref.shape == (2, 50, 513)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4 * ref.max())
 
 
 def test_stft_identity_warp_matches_unwarped():
@@ -126,31 +125,39 @@ def test_masking_ops():
     assert rev[1, 0, :2].tolist() == [13, 12]
 
 
-def test_onehot_roll_bit_exact(monkeypatch):
-    """The one-hot MXU roll (taken on TPU at axis=1, T <= 1024) is a
-    permutation matmul at Precision.HIGHEST — it must reproduce the
-    dynamic-slice roll BIT-exactly, including the wrapped pad region
-    and through the involution VJP."""
+@pytest.mark.parametrize('axis', [1, 2])
+def test_reverse_sequence_matches_numpy_and_vjp(axis):
+    """Masked reversal against a numpy loop (padding stays at the end,
+    untouched) and its VJP against the gradient of the same numpy
+    permutation."""
     import jax
     import jax.numpy as jnp
     from pb_sed_tpu.ops import masking as mk
     rng = np.random.RandomState(5)
-    x = jnp.asarray(rng.randn(3, 17, 5).astype(np.float32))
-    seq_len = jnp.asarray([17, 9, 1])
-
-    def loss(x):
-        return jnp.sum(mk.reverse_sequence(x, seq_len, axis=1) ** 3)
-
-    y_slice = mk.reverse_sequence(x, seq_len, axis=1)
-    g_slice = jax.grad(loss)(x)
-    monkeypatch.setattr(mk, '_use_onehot_roll', lambda t, a, n: True)
-    y_oh = mk.reverse_sequence(x, seq_len, axis=1)
-    g_oh = jax.grad(loss)(x)
-    np.testing.assert_array_equal(np.asarray(y_oh), np.asarray(y_slice))
-    np.testing.assert_array_equal(np.asarray(g_oh), np.asarray(g_slice))
-    # values land where they should
+    x = rng.randn(3, 17, 17, 5).astype(np.float32)
+    seq_len = np.array([17, 9, 1])
+    ref = x.copy()
+    for b, n in enumerate(seq_len):
+        idx = [slice(None)] * 3
+        idx[axis - 1] = slice(0, n)
+        src = np.take(x[b], np.arange(n)[::-1], axis=axis - 1)
+        ref[b][tuple(idx)] = src
+    got = np.asarray(mk.reverse_sequence(jnp.asarray(x), seq_len, axis))
+    for b, n in enumerate(seq_len):
+        valid = np.take(got[b], np.arange(n), axis=axis - 1)
+        np.testing.assert_array_equal(
+            valid, np.take(ref[b], np.arange(n), axis=axis - 1))
+    w = rng.randn(*x.shape).astype(np.float32)
+    grad = np.asarray(jax.grad(lambda v: jnp.sum(
+        mk.reverse_sequence(v, seq_len, axis) * w))(jnp.asarray(x)))
+    # the op is a symmetric permutation: d/dx sum(P(x) * w) = P(w)
     np.testing.assert_array_equal(
-        np.asarray(y_oh)[1, :9], np.asarray(x)[1, 8::-1])
+        grad, np.asarray(mk.reverse_sequence(jnp.asarray(w), seq_len,
+                                             axis)))
+    # and P is an involution
+    twice = mk.reverse_sequence(
+        mk.reverse_sequence(jnp.asarray(x), seq_len, axis), seq_len, axis)
+    np.testing.assert_array_equal(np.asarray(twice), x)
 
 
 def test_filters_match_scipy_reference_semantics():

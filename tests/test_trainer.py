@@ -271,7 +271,9 @@ def test_test_run_is_side_effect_free(tmp_path):
 
 def test_trainer_profiler_trace(tmp_path):
     """profile_at captures a JAX profiler trace into storage_dir/profile
-    (SURVEY.md §5 TPU-native observability)."""
+    (SURVEY.md §5 device-time observability) and reads the device time
+    per step from it; a trace without a GPU plane is an error, not a
+    silent skip."""
     provider = make_provider(tmp_path / 'db')
     storage = tmp_path / 'run'
     trainer = Trainer(
@@ -279,7 +281,9 @@ def test_trainer_profiler_trace(tmp_path):
         stop_trigger=(4, 'iteration'),
         profile_at=2, profile_num_steps=2,
     )
-    trainer.train(provider.get_train_set())
+    with pytest.raises(RuntimeError, match='no device plane'):
+        trainer.train(provider.get_train_set())
+    assert trainer.iteration == 4  # the profile window closed
     trace_files = list((storage / 'profile').rglob('*'))
     assert any(p.is_file() for p in trace_files), trace_files
 
